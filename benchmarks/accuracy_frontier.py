@@ -18,7 +18,6 @@ import argparse
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/qgtc_jax_cache")
 sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
@@ -45,21 +44,20 @@ def main() -> int:
                         "(high-width GIN needs 2e-2; see "
                         "results/artist_gin_probe.csv)")
     p.add_argument("--cpu", action="store_true",
-                   help="force CPU (QAT is small; avoids TPU dispatch)")
+                   help="force CPU (QAT is small)")
     p.add_argument("--csv", type=str, default=None)
     args = p.parse_args()
 
+    import jax
+
     if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        import jax
-
         jax.config.update("jax_platforms", "cpu")
-        import jax.extend.backend
+    from qgtc_ppopp22.utils.cache import setup_compile_cache
 
-        jax.extend.backend.clear_backends()
+    setup_compile_cache()
 
-    from qgtc_ppopp22_tpu.graph import ClusterBatcher, load_dataset
-    from qgtc_ppopp22_tpu.models.train import qat_ladder
+    from qgtc_ppopp22.graph import ClusterBatcher, load_dataset
+    from qgtc_ppopp22.models.train import qat_ladder
 
     models = ["gin"] if args.gin else ["gcn"]
     if args.both_models:
@@ -93,7 +91,7 @@ def main() -> int:
                 print(row, flush=True)
 
     if args.csv and rows:
-        from qgtc_ppopp22_tpu.utils.metrics import write_csv
+        from qgtc_ppopp22.utils.metrics import write_csv
 
         write_csv(args.csv, rows, list(rows[0].keys()))
         print(f"wrote {args.csv}")

@@ -1,4 +1,4 @@
-"""Diagnose the accuracy-frontier dead cells (VERDICT r4 #7).
+"""Diagnose the accuracy-frontier dead cells.
 
 Two probes, committed to ``results/frontier_probe.csv``:
 
@@ -32,12 +32,14 @@ import csv
 import os
 import sys
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-import numpy as np
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
 
 
 def main() -> int:
@@ -53,16 +55,16 @@ def main() -> int:
 
     jax.extend.backend.clear_backends()
 
-    from qgtc_ppopp22_tpu.graph import ClusterBatcher, load_dataset
-    from qgtc_ppopp22_tpu.graph.batching import quantize_np
-    from qgtc_ppopp22_tpu.models.qmodels import QModelConfig
-    from qgtc_ppopp22_tpu.models.train import (
+    from qgtc_ppopp22.graph import ClusterBatcher, load_dataset
+    from qgtc_ppopp22.graph.batching import quantize_np
+    from qgtc_ppopp22.models.qmodels import QModelConfig
+    from qgtc_ppopp22.models.train import (
         qat_train,
         quantized_accuracy,
     )
-    from qgtc_ppopp22_tpu.runtime import QGTCEngine
-    from qgtc_ppopp22_tpu.models.qmodels import pack_weights
-    from qgtc_ppopp22_tpu.utils.metrics import multilabel_f1
+    from qgtc_ppopp22.runtime import QGTCEngine
+    from qgtc_ppopp22.models.qmodels import pack_weights
+    from qgtc_ppopp22.utils.metrics import multilabel_f1
     from tests.golden import bitmm_np
 
     rows = []
@@ -127,7 +129,7 @@ def main() -> int:
     )
     q2 = [quantize_np(np.asarray(w), 2) for w in ws2]
     # per-stage saturation under the calibrated shifts on batch 0
-    from qgtc_ppopp22_tpu.ops.bitpack import bit2val
+    from qgtc_ppopp22.ops.bitpack import bit2val
 
     b0 = it2.batches[0]
     n0 = b0.num_nodes

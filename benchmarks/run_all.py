@@ -3,7 +3,7 @@
 
 Loops datasets x engines (QGTC quantized vs full-precision baseline) x
 models (Cluster-GCN / batched-GIN), invoking the same code path as
-``qgtc_ppopp22_tpu.cli``, and writes a structured CSV — replacing the
+``qgtc_ppopp22.cli``, and writes a structured CSV — replacing the
 reference's ``os.system`` + log-scrape pipeline
 (``0_7a_eval_QGTC_cluster_GCN.py:20-47``, ``parse_time.py``).
 
@@ -11,20 +11,19 @@ Usage::
 
     python benchmarks/run_all.py --datasets Proteins artist ppi \
         [--gin] [--bits 1 2 4 8] [--csv results/epochs.csv]
+
+Every row names the device it ran on; with no GPU the script stops.
 """
 
 import argparse
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/qgtc_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-import numpy as np
+from qgtc_ppopp22.utils.cache import setup_compile_cache  # noqa: E402
 
 
 def main() -> int:
@@ -45,20 +44,25 @@ def main() -> int:
     p.add_argument("--batch-size", type=int, default=20)
     p.add_argument("--n-epochs", type=int, default=10)
     p.add_argument("--scale", type=float, default=1.0)
-    p.add_argument("--zerotile_jump", action="store_true", default=None,
-                   help="force on (absent = auto: streaming-mega only)")
-    p.add_argument("--mode", choices=("step", "fused", "mega"),
-                   default="mega")
+    p.add_argument("--mode", choices=("step", "fused"), default="fused")
     p.add_argument("--csv", type=str, default="results/epochs.csv")
     args = p.parse_args()
 
-    from qgtc_ppopp22_tpu.graph import ClusterBatcher, load_dataset
-    from qgtc_ppopp22_tpu.runtime import BaselineEngine, QGTCEngine
+    setup_compile_cache()
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        print("run_all.py times the GPU; JAX found "
+              f"{jax.devices()[0].platform}", file=sys.stderr)
+        return 1
+
+    from qgtc_ppopp22.graph import ClusterBatcher, load_dataset
+    from qgtc_ppopp22.runtime import BaselineEngine, QGTCEngine
 
     model = "gin" if args.gin else "gcn"
     rows = []
-    from qgtc_ppopp22_tpu.graph.datasets import DEFAULT_PSIZE
-    from qgtc_ppopp22_tpu.utils.metrics import write_csv
+    from qgtc_ppopp22.graph.datasets import DEFAULT_PSIZE
+    from qgtc_ppopp22.utils.metrics import write_csv
 
     def flush():
         # Incremental write: a long multi-dataset sweep keeps its
@@ -90,11 +94,8 @@ def main() -> int:
                 num_classes=ds.num_classes,
                 model=model,
                 bit_width=bits,
-                zerotile_jump=args.zerotile_jump,
             )
-            if args.mode == "mega":
-                st = eng.run_epochs_mega(it, n_epochs=args.n_epochs)
-            elif args.mode == "fused":
+            if args.mode == "fused":
                 st = eng.run_epochs_fused(it, n_epochs=args.n_epochs)
             else:
                 st = eng.run_epochs(
@@ -106,8 +107,10 @@ def main() -> int:
                 engine="qgtc",
                 bits=bits,
                 mode=args.mode,
-                epoch_ms=round(st.avg_ms, 3),
-                launch_sync_ms=round(st.launch_sync_ms, 3),
+                epoch_ms=st.avg_ms,
+                compiles_in_window=st.compiles,
+                device=st.device["kind"],
+                device_count=st.device["count"],
             )
             rows.append(row)
             print(row, flush=True)
@@ -122,8 +125,6 @@ def main() -> int:
             )
             if args.mode == "step":
                 st = beng.run_epochs(it, ds, n_epochs=args.n_epochs)
-            elif args.mode == "mega":
-                st = beng.run_epochs_mega(it, ds, n_epochs=args.n_epochs)
             else:
                 st = beng.run_epochs_fused(it, ds, n_epochs=args.n_epochs)
             row = dict(
@@ -132,8 +133,10 @@ def main() -> int:
                 engine="fp-baseline",
                 bits=32,
                 mode=args.mode,
-                epoch_ms=round(st.avg_ms, 3),
-                launch_sync_ms=round(st.launch_sync_ms, 3),
+                epoch_ms=st.avg_ms,
+                compiles_in_window=st.compiles,
+                device=st.device["kind"],
+                device_count=st.device["count"],
             )
             rows.append(row)
             print(row, flush=True)

@@ -12,11 +12,12 @@ import jax
 jax.distributed.initialize(
     coordinator_address=f"localhost:{port}", num_processes=nproc, process_id=pid)
 import numpy as np, jax.numpy as jnp
-sys.path.insert(0, '/root/repo')
-from qgtc_ppopp22_tpu.ops.digits import digit_pack
-from qgtc_ppopp22_tpu.parallel import pod_mesh, host_batch_slice
-from qgtc_ppopp22_tpu.parallel.sharded import dp_sp_epoch_step, shard_batches
-from qgtc_ppopp22_tpu.models.qmodels import qgcn_forward
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+from qgtc_ppopp22.ops.digits import digit_pack
+from qgtc_ppopp22.parallel import pod_mesh, host_batch_slice
+from qgtc_ppopp22.parallel.sharded import dp_sp_epoch_step, shard_batches
+from qgtc_ppopp22.models.qmodels import qgcn_forward
 
 print(f"p{pid}: devices={jax.device_count()} local={jax.local_device_count()}", flush=True)
 rng = np.random.default_rng(0)
@@ -45,9 +46,9 @@ print(f"p{pid}: MULTIHOST-{'OK' if ok else 'FAIL'} out={out_local.shape}", flush
 # jax.make_array_from_process_local_data — see MeshEngine._put), and
 # several epochs run before the single gather, exercising the
 # production multi-host execution path, not just one forward.
-from qgtc_ppopp22_tpu.graph import ClusterBatcher, synthesize
-from qgtc_ppopp22_tpu.parallel import MeshEngine
-from qgtc_ppopp22_tpu.runtime import QGTCEngine
+from qgtc_ppopp22.graph import ClusterBatcher, synthesize
+from qgtc_ppopp22.parallel import MeshEngine
+from qgtc_ppopp22.runtime import QGTCEngine
 
 ds = synthesize("Proteins", scale=0.05, seed=0)
 batcher = ClusterBatcher(ds, psize=8, batch_size=2, bit_width=2,
@@ -63,22 +64,16 @@ gath = [np.asarray(jax.experimental.multihost_utils.process_allgather(
 ref_eng = QGTCEngine(batcher.feat_dim, ds.num_classes, model="gcn",
                      bit_width=2, seed=0)
 ok2 = True
-for (fn, args, bs, pn, use_mega), g in zip(eng._staged, gath):
+for (fn, args, bs, pn), g in zip(eng._staged, gath):
     for i, b in enumerate(bs):
         r = np.asarray(ref_eng.forward_batch(b))
         o = g[i][: b.num_nodes, : eng.cfg.out_dim]
         ok2 = ok2 and np.array_equal(
             r[: b.num_nodes, : eng.cfg.out_dim], o)
-modes = ["mega" if s[4] else "ring" for s in eng._staged]
-print(f"p{pid}: MESH-EPOCH-{'OK' if ok2 else 'FAIL'} modes={modes}",
-      flush=True)
+print(f"p{pid}: MESH-EPOCH-{'OK' if ok2 else 'FAIL'}", flush=True)
 
-# --- per-process epoch WALLS (throughput structure) ----------------
-# One chip per environment means multi-host *speed* is unmeasurable;
-# what IS measurable is the throughput structure: each process stages
-# ceil(B/nproc) of the batches and its epoch wall reflects only its
-# own share plus collective sync. Committed by
-# benchmarks/multihost_structure.py to results/multihost_walls.csv.
+# --- per-process epoch walls: each process stages ceil(B/nproc) of
+# the batches; its wall reflects its own share plus collective sync.
 import time
 n_epochs = 10
 out = eng._epoch_all(eng._all_args, eng._ws)  # warm
@@ -89,7 +84,7 @@ for _ in range(n_epochs):
 jax.block_until_ready(out)
 wall = (time.perf_counter() - t0) * 1e3 / n_epochs
 nb = 0  # this process's staged share (see MeshEngine.stage)
-for (_f, _a, bs, _pn, _um) in eng._staged:
+for (_f, _a, bs, _pn) in eng._staged:
     Bp = -(-len(bs) // eng.dp) * eng.dp
     sl = host_batch_slice(Bp)
     nb += max(0, min(sl.stop, Bp) - sl.start)

@@ -1,7 +1,7 @@
 """NumPy golden model of the reference's integer semantics.
 
 Independent re-statement of the CUDA reference's math used to validate
-the TPU kernels by exact integer equality:
+the GEMM routes by exact integer equality:
 
 * ``quantize_np``   -- ``Quantize_val`` + ``clip`` (``kernel.h:31-71``)
 * ``requantize_np`` -- epilogue ``quantize(val, ob, 1<<ob, 0)``

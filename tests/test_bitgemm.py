@@ -3,13 +3,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qgtc_ppopp22_tpu.ops.bitpack import pack_bits, unpack_bits
-from qgtc_ppopp22_tpu.ops.bitgemm import (
-    bitmm_to_bits,
-    bitmm_to_int,
-    build_tile_map,
-    zero_tile_stats,
-)
+from qgtc_ppopp22.ops.bitpack import pack_bits, unpack_bits
+from qgtc_ppopp22.ops.bitgemm import bitmm_to_bits, bitmm_to_int
+from qgtc_ppopp22.ops.packmm import build_tile_map_packed_np, pack_rows_np
 from tests.golden import bitmm_np
 
 
@@ -70,7 +66,7 @@ def test_bitmm_chains_as_either_operand(rng):
 
 
 def test_bitmm_sparse_matches_dense(rng):
-    # Block-diagonal-ish sparse lhs: zero-tile jumping must be exact.
+    # Block-diagonal sparse lhs (the cluster-batch structure): exact.
     M = K = 1024
     N = 16
     qa = np.zeros((M, K), np.int32)
@@ -82,24 +78,24 @@ def test_bitmm_sparse_matches_dense(rng):
     b = pack_bits(jnp.asarray(qb), 2)
 
     dense = np.asarray(unpack_bits(bitmm_to_bits(a, b, 2)))
-    tm = build_tile_map(a)
-    sparse = np.asarray(unpack_bits(bitmm_to_bits(a, b, 2, tile_map=tm)))
-    assert (sparse == dense).all()
     assert (dense == bitmm_np(qa, qb, 1, 2, 2)).all()
 
-    got_f = np.asarray(bitmm_to_int(a, b, tile_map=tm))
+    got_f = np.asarray(bitmm_to_int(a, b))
     assert (got_f == bitmm_np(qa, qb, 1, 2, None)).all()
 
 
 def test_zero_tile_stats(rng):
+    """Pack-time tile counters (reference Fig. 8b study): one occupied
+    256x512 tile out of 4 row tiles x 2 K tiles."""
     M = K = 1024
     qa = np.zeros((M, K), np.int32)
     qa[:256, :512] = 1  # one 256x512 tile row occupied
-    a = pack_bits(jnp.asarray(qa), 1)
-    stats = zero_tile_stats(a, tile_m=256, tile_k=512)
-    assert stats["total"] == 8  # 4 row-tiles x 2 k-tiles
-    assert stats["processed"] == 1
-    assert stats["ratio"] == pytest.approx(1 / 8)
+    kidx, kcnt = build_tile_map_packed_np(
+        pack_rows_np(qa, 1), 1, tile_m=256, tile_k=512
+    )
+    assert kidx.size == 8  # 4 row-tiles x 2 k-tiles
+    assert int(kcnt.sum()) == 1
+    assert kcnt.sum() / kidx.size == pytest.approx(1 / 8)
 
 
 def test_bitmm_under_jit(rng):

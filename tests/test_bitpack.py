@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qgtc_ppopp22_tpu.ops.bitpack import (
+from qgtc_ppopp22.ops.bitpack import (
     ROW_PAD,
     COL_PAD,
     BitTensor,

@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from qgtc_ppopp22_tpu.graph import (
+from qgtc_ppopp22.graph import (
     ClusterBatcher,
     from_edges,
     get_partition_list,
     edge_cut_fraction,
     synthesize,
 )
-from qgtc_ppopp22_tpu.graph.batching import quantize_np
-from qgtc_ppopp22_tpu.ops.bitpack import pack_bits, pack_bits_np, unpack_bits
+from qgtc_ppopp22.graph.batching import quantize_np
+from qgtc_ppopp22.ops.bitpack import pack_bits, pack_bits_np, unpack_bits
 
 
 def small_graph(rng, n=200, m=800):
@@ -130,8 +130,8 @@ def test_precalc_doubles_feat_dim():
 
 def test_load_npz_reference_format(tmp_path, rng):
     """P1: reference-format npz (src_li/dst_li) loads like dataset.py."""
-    from qgtc_ppopp22_tpu.graph import load_npz
-    from qgtc_ppopp22_tpu.graph.datasets import load_dataset
+    from qgtc_ppopp22.graph import load_npz
+    from qgtc_ppopp22.graph.datasets import load_dataset
 
     src = rng.integers(0, 100, 400)
     dst = rng.integers(0, 100, 400)
@@ -156,7 +156,7 @@ def test_load_npz_reference_format(tmp_path, rng):
 def test_synth_csr_disk_cache(tmp_path, monkeypatch):
     """Large synthetic topologies round-trip through the CSR disk
     cache byte-identically (node data regenerates from the seed)."""
-    from qgtc_ppopp22_tpu.graph import datasets as dsmod
+    from qgtc_ppopp22.graph import datasets as dsmod
 
     monkeypatch.setattr(dsmod, "_CSR_CACHE_MIN_EDGES", 0)
     ds1 = dsmod.load_dataset(

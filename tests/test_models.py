@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qgtc_ppopp22_tpu.graph import ClusterBatcher, synthesize, batch_labels
-from qgtc_ppopp22_tpu.models import (
+from qgtc_ppopp22.graph import ClusterBatcher, synthesize, batch_labels
+from qgtc_ppopp22.models import (
     QModelConfig,
     init_weights,
     pack_weights,
@@ -21,8 +21,9 @@ from qgtc_ppopp22_tpu.models import (
     qgcn_golden,
     qgin_golden,
 )
-from qgtc_ppopp22_tpu.ops.bitgemm import build_tile_map
-from qgtc_ppopp22_tpu.ops.bitpack import pack_bits, unpack_bits
+from qgtc_ppopp22.ops.bitpack import pack_bits, unpack_bits
+from qgtc_ppopp22.ops.digits import digit_pack
+from qgtc_ppopp22.ops.packmm import build_tile_map_packed_np, pack_rows
 from tests.golden import quantize_np
 
 
@@ -68,24 +69,26 @@ def test_qgin_matches_golden(rng, bits):
 
 
 def test_qgcn_with_tile_map_identical(rng):
+    """Packed adjacency with all-zero 256x256 tiles (counted by the
+    pack-time tile map) through the model == golden."""
     bits = 2
-    n, dim = 256, 32
+    n, dim = 512, 32
     a, qx = make_inputs(rng, n, dim, bits)
-    a[: n // 2] = 0  # guarantee zero tiles
+    a[: n // 2, n // 2:] = 0  # guarantee zero tiles
     cfg = QModelConfig(dim, 16, 8, bit_width=bits)
     ws = init_weights(jax.random.PRNGKey(2), cfg)
     qws = [quantize_np(np.asarray(w), bits) for w in ws]
 
-    bit_a = pack_bits(jnp.asarray(a), 1)
-    bit_x = pack_bits(jnp.asarray(qx), bits)
-    bit_ws = [pack_bits(jnp.asarray(qw), bits) for qw in qws]
-    tm = build_tile_map(bit_a)
+    pa = pack_rows(jnp.asarray(a), 1)
+    dx = digit_pack(jnp.asarray(qx), bits)
+    dws = [digit_pack(jnp.asarray(qw), bits) for qw in qws]
+    kidx, kcnt = build_tile_map_packed_np(np.asarray(pa.words), 1)
+    assert kcnt.tolist() == [1, 2] and kidx.size == 4
 
-    dense = np.asarray(qgcn_forward(bit_a, bit_x, bit_ws, out_bits=bits))
-    sparse = np.asarray(
-        qgcn_forward(bit_a, bit_x, bit_ws, out_bits=bits, tile_map=tm)
+    got = np.asarray(qgcn_forward(pa, dx, dws, out_bits=bits))
+    np.testing.assert_array_equal(
+        got, qgcn_golden(a, qx, qws, bits, bits).astype(np.float32)
     )
-    np.testing.assert_array_equal(dense, sparse)
 
 
 def test_end_to_end_cluster_batch_pipeline(rng):
@@ -118,9 +121,6 @@ def test_end_to_end_cluster_batch_pipeline(rng):
 
 def test_qgcn_digit_path_matches_golden(rng):
     """Same model through the DigitTensor compute format."""
-    from qgtc_ppopp22_tpu.ops.digits import digit_pack
-    from qgtc_ppopp22_tpu.ops.digitmm import build_tile_map_digits
-
     bits = 2
     n, dim = 256, 32
     a, qx = make_inputs(rng, n, dim, bits)
@@ -136,12 +136,6 @@ def test_qgcn_digit_path_matches_golden(rng):
     want = qgcn_golden(a, qx, qws, bits, bits)
     np.testing.assert_array_equal(got, want.astype(np.float32))
 
-    tm = build_tile_map_digits(da)
-    got_sp = np.asarray(
-        qgcn_forward(da, dx, dws, out_bits=bits, tile_map=tm)
-    )
-    np.testing.assert_array_equal(got_sp, want.astype(np.float32))
-
     got_gin = np.asarray(qgin_forward(da, dx, dws, out_bits=bits))
     want_gin = qgin_golden(a, qx, qws, bits, bits)
     np.testing.assert_array_equal(got_gin, want_gin.astype(np.float32))
@@ -149,8 +143,7 @@ def test_qgcn_digit_path_matches_golden(rng):
 
 def test_layer_api_composes_to_model(rng):
     """QGCNConv/QGINConv layer objects reproduce the model forwards."""
-    from qgtc_ppopp22_tpu.models.layers import QGCNConv, QGINConv
-    from qgtc_ppopp22_tpu.ops.digits import digit_pack
+    from qgtc_ppopp22.models.layers import QGCNConv, QGINConv
 
     bits = 2
     n, dim = 256, 32
@@ -181,8 +174,8 @@ def test_layer_api_composes_to_model(rng):
 
 def test_sparse_full_graph_matches_golden(rng):
     """Sparse CSR engine == dense golden on the full graph, both models."""
-    from qgtc_ppopp22_tpu.graph import synthesize
-    from qgtc_ppopp22_tpu.models.sparse import sparse_q_forward
+    from qgtc_ppopp22.graph import synthesize
+    from qgtc_ppopp22.models.sparse import sparse_q_forward
 
     bits = 2
     ds = synthesize("Proteins", scale=0.02, seed=11)
@@ -209,274 +202,3 @@ def test_sparse_full_graph_matches_golden(rng):
         )
         want = golden(dense_a, qx, qws, bits, bits, shifts=shifts)
         np.testing.assert_array_equal(got, want.astype(np.float32))
-
-
-def test_mega_kernel_chunk_skip_exact(rng):
-    """Zero-tile chunk skipping in the mega kernel == dense, with
-    all-zero row-chunks actually present (padding rows)."""
-    from qgtc_ppopp22_tpu.ops.digits import digit_pack
-    from qgtc_ppopp22_tpu.ops.fused_model import fused_model_epoch
-    from qgtc_ppopp22_tpu.ops.packmm import pack_rows_np
-    from qgtc_ppopp22_tpu.runtime import mega_chunk_occ
-
-    bits, pn, xp = 2, 1024, 128
-    qa = (rng.random((2, pn, pn)) < 0.02).astype(np.int32)
-    qa[:, 512:, :] = 0  # padding rows -> the second 512-chunk is zero
-    qx = rng.integers(0, 1 << bits, (2, pn, xp)).astype(np.int32)
-    qws = [
-        rng.integers(0, 1 << bits, s).astype(np.int32)
-        for s in [(xp, 128), (128, 128), (128, 128)]
-    ]
-    ws = [digit_pack(jnp.asarray(w), bits) for w in qws]
-    x_stack = np.stack(
-        [np.asarray(digit_pack(jnp.asarray(q), bits).digits) for q in qx]
-    )
-    a_words = np.concatenate([pack_rows_np(q, 1) for q in qa])
-    occ = np.stack([mega_chunk_occ(w[None], 512) for w in a_words])
-    assert occ.min() == 0 and occ.max() == 1  # both kinds present
-    for model in ("gcn", "gin"):
-        for resident in (True, False):
-            dense = fused_model_epoch(
-                jnp.asarray(a_words), jnp.asarray(x_stack), ws, bits,
-                model=model, resident_a=resident,
-            )
-            skip = fused_model_epoch(
-                jnp.asarray(a_words), jnp.asarray(x_stack), ws, bits,
-                model=model, resident_a=resident,
-                chunk_occ=jnp.asarray(occ),
-            )
-            np.testing.assert_array_equal(
-                np.asarray(dense), np.asarray(skip)
-            )
-
-
-def test_mega_kernel_block_skip_2d_exact(rng):
-    """2-D (row-chunk x col-block) zero-block jumping == dense for a
-    block-diagonal adjacency (the cluster-batch structure where the
-    streaming skip saves DMA + MXU), both streaming and resident, and
-    against the ground-truth golden chain."""
-    from qgtc_ppopp22_tpu.ops.digits import digit_pack
-    from qgtc_ppopp22_tpu.ops.fused_model import (
-        fused_model_epoch,
-        mega_colblock,
-    )
-    from qgtc_ppopp22_tpu.ops.packmm import pack_rows_np
-    from qgtc_ppopp22_tpu.runtime import mega_block_occ
-
-    bits, pn, xp = 2, 1536, 128
-    cb = mega_colblock(pn)
-    qa = np.zeros((pn, pn), np.int32)
-    for s in range(0, pn, 256):  # block-diagonal: off-diag blocks zero
-        qa[s:s + 256, s:s + 256] = (
-            rng.random((256, 256)) < 0.05
-        ).astype(np.int32)
-    qx = rng.integers(0, 1 << bits, (pn, xp)).astype(np.int32)
-    qws = [
-        rng.integers(0, 1 << bits, s).astype(np.int32)
-        for s in [(xp, 128), (128, 128), (128, 128)]
-    ]
-    ws = [digit_pack(jnp.asarray(w), bits) for w in qws]
-    x_stack = np.asarray(digit_pack(jnp.asarray(qx), bits).digits)[None]
-    a_words = pack_rows_np(qa, 1)
-    occ = mega_block_occ(a_words, 512, cb)[None]
-    assert 0.0 < occ.mean() < 1.0  # real blocks skipped
-    for model in ("gcn", "gin"):
-        gold = qgcn_golden if model == "gcn" else qgin_golden
-        want = gold(qa, qx, qws, bits, bits)
-        for resident in (True, False):
-            skip = fused_model_epoch(
-                jnp.asarray(a_words), jnp.asarray(x_stack), ws, bits,
-                model=model, resident_a=resident,
-                chunk_occ=jnp.asarray(occ),
-            )
-            np.testing.assert_array_equal(
-                np.asarray(skip)[0], want.astype(np.float32)
-            )
-
-
-def test_mega_kernel_8bit_and_shifts(rng):
-    """fused_model_epoch: multi-digit operands + requant shifts."""
-    from qgtc_ppopp22_tpu.ops.digits import digit_pack
-    from qgtc_ppopp22_tpu.ops.fused_model import fused_model_epoch
-    from qgtc_ppopp22_tpu.ops.packmm import pack_rows_np
-
-    pn, xp = 512, 128
-    for bits, shifts in ((8, None), (2, [1, 2, 1, 2, 1]), (8, [2, 3, 4, 2, 3])):
-        qa = (rng.random((2, pn, pn)) < 0.02).astype(np.int8)
-        qx = rng.integers(0, 1 << bits, (2, pn, xp)).astype(np.int32)
-        qws = [
-            rng.integers(0, 1 << bits, s).astype(np.int32)
-            for s in [(xp, 128), (128, 128), (128, 128)]
-        ]
-        ws = [digit_pack(jnp.asarray(w), bits) for w in qws]
-        x_stack = np.stack(
-            [np.asarray(digit_pack(jnp.asarray(q), bits).digits) for q in qx]
-        )
-        a_words = np.concatenate(
-            [pack_rows_np(q.astype(np.int32), 1) for q in qa]
-        )
-        out = fused_model_epoch(
-            jnp.asarray(a_words), jnp.asarray(x_stack), ws, bits,
-            model="gcn", shifts=shifts,
-        )
-        for b in range(2):
-            want = qgcn_golden(
-                qa[b].astype(np.int32), qx[b], qws, bits, bits,
-                shifts=shifts,
-            )
-            got = np.asarray(out[b])[:, : want.shape[1]]
-            np.testing.assert_array_equal(got, want.astype(np.float32))
-
-
-def test_mega_kernel_lane_stacking_exact(rng):
-    """8-bit (two-digit-plane) operands at the benchmark's REAL widths
-    (hidden 16/64, a dozen classes, narrow features) trigger the
-    lane-stacking fast path — both digit planes of weights / hidden
-    state / (GIN) features ride one 128-lane tile, halving MXU passes.
-    Must be bit-exact vs the golden chain for every model x mode x
-    skipping combination, with and without ``x_cols``, and with
-    requant shifts (which interact with the unstacked accumulator)."""
-    from qgtc_ppopp22_tpu.ops.digits import digit_pack
-    from qgtc_ppopp22_tpu.ops.fused_model import fused_model_epoch
-    from qgtc_ppopp22_tpu.ops.fused_model import mega_colblock
-    from qgtc_ppopp22_tpu.ops.packmm import pack_rows_np
-    from qgtc_ppopp22_tpu.runtime import mega_block_occ
-
-    pn, feat, ncls = 512, 29, 12
-    for bits, hid, shifts in (
-        (8, 16, None),
-        (8, 64, [2, 3, 4, 2, 3]),
-        (6, 16, None),  # partial top digit (bits 4-5)
-    ):
-        qa = (rng.random((2, pn, pn)) < 0.05).astype(np.int32)
-        qx = rng.integers(0, 1 << bits, (2, pn, feat)).astype(np.int32)
-        qws = [
-            rng.integers(0, 1 << bits, s).astype(np.int32)
-            for s in [(feat, hid), (hid, hid), (hid, ncls)]
-        ]
-        ws = [digit_pack(jnp.asarray(w), bits) for w in qws]
-        assert ws[0].digits.shape[0] == 2  # stacking path actually taken
-        x_stack = np.stack(
-            [np.asarray(digit_pack(jnp.asarray(q), bits).digits) for q in qx]
-        )
-        a_words = np.concatenate([pack_rows_np(q, 1) for q in qa])
-        occ = np.stack(
-            [mega_block_occ(w[None], 512, mega_colblock(pn)) for w in a_words]
-        )
-        for model, golden in (("gcn", qgcn_golden), ("gin", qgin_golden)):
-            want = [
-                golden(qa[b], qx[b], qws, bits, bits, shifts=shifts)
-                for b in range(2)
-            ]
-            for resident in (True, False):
-                for kw in (
-                    dict(),
-                    dict(x_cols=feat),
-                    dict(x_cols=feat, chunk_occ=jnp.asarray(occ)),
-                ):
-                    out = fused_model_epoch(
-                        jnp.asarray(a_words), jnp.asarray(x_stack), ws,
-                        bits, model=model, shifts=shifts,
-                        resident_a=resident, **kw,
-                    )
-                    for b in range(2):
-                        np.testing.assert_array_equal(
-                            np.asarray(out[b])[:, : want[b].shape[1]],
-                            want[b].astype(np.float32),
-                        )
-
-
-def test_mega_kernel_x_levels_exact(rng):
-    """Levels-form X (int8 byte levels, ONE plane; the kernel splits
-    base-16 digits in-VMEM after the DMA — halves >4-bit feature HBM
-    traffic) must be bit-exact vs the digit-plane form for GCN and GIN,
-    resident and streaming, with shifts, x_cols and zero-block maps."""
-    from qgtc_ppopp22_tpu.ops.digits import digit_pack
-    from qgtc_ppopp22_tpu.ops.fused_model import (
-        fused_model_epoch,
-        mega_colblock,
-    )
-    from qgtc_ppopp22_tpu.ops.packmm import pack_rows_np
-    from qgtc_ppopp22_tpu.runtime import mega_block_occ
-
-    pn, feat, ncls = 512, 29, 12
-    for bits, hid, shifts in ((8, 16, None), (6, 64, [1, 2, 1, 2, 1])):
-        qa = (rng.random((2, pn, pn)) < 0.05).astype(np.int32)
-        qx = rng.integers(0, 1 << bits, (2, pn, feat)).astype(np.int32)
-        qws = [
-            rng.integers(0, 1 << bits, s).astype(np.int32)
-            for s in [(feat, hid), (hid, hid), (hid, ncls)]
-        ]
-        ws = [digit_pack(jnp.asarray(w), bits) for w in qws]
-        x_dig = np.stack(
-            [np.asarray(digit_pack(jnp.asarray(q), bits).digits) for q in qx]
-        )
-        assert x_dig.shape[1] == 2
-        # byte levels: digit0 | digit1 << 4, one plane
-        x_lvl = (
-            x_dig[:, 0].astype(np.int32) | (x_dig[:, 1].astype(np.int32) << 4)
-        ).astype(np.int8)[:, None]
-        a_words = np.concatenate([pack_rows_np(q, 1) for q in qa])
-        occ = np.stack(
-            [mega_block_occ(w[None], 512, mega_colblock(pn)) for w in a_words]
-        )
-        for model, golden in (("gcn", qgcn_golden), ("gin", qgin_golden)):
-            want = [
-                golden(qa[b], qx[b], qws, bits, bits, shifts=shifts)
-                for b in range(2)
-            ]
-            for resident in (True, False):
-                for kw in (
-                    dict(x_cols=feat),
-                    dict(x_cols=feat, chunk_occ=jnp.asarray(occ)),
-                ):
-                    out = fused_model_epoch(
-                        jnp.asarray(a_words), jnp.asarray(x_lvl), ws,
-                        bits, model=model, shifts=shifts,
-                        resident_a=resident, x_levels_bits=bits, **kw,
-                    )
-                    for b in range(2):
-                        np.testing.assert_array_equal(
-                            np.asarray(out[b])[:, : want[b].shape[1]],
-                            want[b].astype(np.float32),
-                        )
-
-
-def test_mega_kernel_sliced_logit_store(rng):
-    """out_cols stores only the real class columns: values equal the
-    full-width output's prefix for every mode x model (the weight
-    digit tensors pad classes to 128 lanes; the slice changes bytes
-    written, never values)."""
-    from qgtc_ppopp22_tpu.ops.digits import digit_pack
-    from qgtc_ppopp22_tpu.ops.fused_model import fused_model_epoch
-    from qgtc_ppopp22_tpu.ops.packmm import pack_rows_np
-
-    bits, pn, xp, ncls = 2, 512, 128, 12
-    qa = (rng.random((2, pn, pn)) < 0.05).astype(np.int32)
-    qx = rng.integers(0, 1 << bits, (2, pn, xp)).astype(np.int32)
-    qws = [
-        rng.integers(0, 1 << bits, s).astype(np.int32)
-        for s in [(xp, 128), (128, 128), (128, ncls)]
-    ]
-    ws = [digit_pack(jnp.asarray(w), bits) for w in qws]
-    x_stack = np.stack(
-        [np.asarray(digit_pack(jnp.asarray(q), bits).digits) for q in qx]
-    )
-    a_words = np.concatenate([pack_rows_np(q, 1) for q in qa])
-    for model in ("gcn", "gin"):
-        for resident in (True, False):
-            full = np.asarray(
-                fused_model_epoch(
-                    jnp.asarray(a_words), jnp.asarray(x_stack), ws,
-                    bits, model=model, resident_a=resident,
-                )
-            )
-            sliced = np.asarray(
-                fused_model_epoch(
-                    jnp.asarray(a_words), jnp.asarray(x_stack), ws,
-                    bits, model=model, resident_a=resident,
-                    out_cols=ncls,
-                )
-            )
-            assert sliced.shape == (2, pn, 16)  # round8(12)
-            np.testing.assert_array_equal(full[:, :, :16], sliced)

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from qgtc_ppopp22_tpu.graph import from_edges, edge_cut_fraction, synthesize
-from qgtc_ppopp22_tpu.graph.batching import quantize_np
-from qgtc_ppopp22_tpu.graph.partition import _partition_bfs
-from qgtc_ppopp22_tpu.ops.bitpack import pack_bits_np, round_up, ROW_PAD
+from qgtc_ppopp22.graph import from_edges, edge_cut_fraction, synthesize
+from qgtc_ppopp22.graph.batching import quantize_np
+from qgtc_ppopp22.graph.partition import _partition_bfs
+from qgtc_ppopp22.ops.bitpack import pack_bits_np, round_up, ROW_PAD
 
-native = pytest.importorskip("qgtc_ppopp22_tpu.native")
+native = pytest.importorskip("qgtc_ppopp22.native")
 
 if not native.available():
     pytest.skip("native toolchain unavailable", allow_module_level=True)

@@ -1,19 +1,18 @@
-"""Packed-operand GEMM: container round-trips and kernel exactness.
+"""Packed-operand GEMM: container round-trips and exactness.
 
-Validates the SWAR-unpack GEMM (``ops/packmm.py``) — the TPU
-equivalent of the reference's packed-consuming BMMA kernels
-(``kernel.h:245-391``) — by exact integer equality vs the NumPy
-golden model.
+Validates the packed-A GEMM (``ops/packmm.py``), the equivalent of the
+reference's packed-consuming BMMA kernels (``kernel.h:245-391``), by
+exact integer equality vs the NumPy golden model.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qgtc_ppopp22_tpu.ops.digits import digit_pack, digit_unpack
-from qgtc_ppopp22_tpu.ops.packmm import (
+from qgtc_ppopp22.ops.digits import digit_pack, digit_unpack
+from qgtc_ppopp22.ops.packmm import (
     PackedTensor,
-    build_tile_map_packed,
+    build_tile_map_packed_np,
     pack_digit_tensor,
     pack_rows,
     pack_rows_np,
@@ -111,23 +110,25 @@ def test_packmm_sparse_matches_dense(rng):
     qb = rng.integers(0, 4, (K, N)).astype(np.int32)
     a = pack_rows(jnp.asarray(qa), 1)
     b = digit_pack(jnp.asarray(qb), 2)
-    tm = build_tile_map_packed(a, tile_m=256, tile_k=256)
-    assert int(np.sum(np.asarray(tm.kcnt))) < tm.kidx.size
-    dense = packmm_to_digits(a, b, 2, tiles=(256, 256, 128))
-    sparse = packmm_to_digits(a, b, 2, tile_map=tm)
+    kidx, kcnt = build_tile_map_packed_np(np.asarray(a.words), 1)
+    # row tiles 0-1 hold columns 512.. (2 of 4 K tiles); 2-3 are empty
+    assert kcnt.tolist() == [2, 2, 0, 0]
+    assert kidx[0].tolist() == [2, 3, 3, 3]
     np.testing.assert_array_equal(
-        np.asarray(digit_unpack(dense)), np.asarray(digit_unpack(sparse))
+        np.asarray(digit_unpack(packmm_to_digits(a, b, 2))),
+        bitmm_np(qa, qb, 1, 2, 2),
     )
-    densef = packmm_to_f32(a, b, tiles=(256, 256, 128))
-    sparsef = packmm_to_f32(a, b, tile_map=tm)
-    np.testing.assert_array_equal(np.asarray(densef), np.asarray(sparsef))
+    np.testing.assert_array_equal(
+        np.asarray(packmm_to_f32(a, b)),
+        bitmm_np(qa, qb, 1, 2, None).astype(np.float32),
+    )
 
 
 @pytest.mark.parametrize("N", [13, 16, 64])
 def test_packmm_lane_stacked_rhs_exact(rng, N):
-    """8-bit B at real width <= 64 rides ONE lane tile inside the
-    packed-operand kernel (``ops/digits.lane_stack``): digits, f32,
-    packed output, and the sparse grid all stay bit-exact vs golden."""
+    """8-bit (two-digit-plane) B at the model's narrow widths against
+    a signed 8-bit A: digits, f32 and packed output all stay bit-exact
+    vs golden."""
     M, K = 512, 512
     qa = rng.integers(0, 1 << 8, (M, K)).astype(np.int32)
     qa[256:] = 0
@@ -135,7 +136,7 @@ def test_packmm_lane_stacked_rhs_exact(rng, N):
     qb = rng.integers(0, 1 << 8, (K, N)).astype(np.int32)
     a = pack_rows(jnp.asarray(qa), 8)
     b = digit_pack(jnp.asarray(qb), 8)
-    assert b.digits.shape[0] == 2  # the stacked path is actually taken
+    assert b.digits.shape[0] == 2  # two digit planes
 
     got = np.asarray(digit_unpack(packmm_to_digits(a, b, 4, shift=2)))
     want = bitmm_np(qa, qb, 8, 8, 4, shift=2)
@@ -148,13 +149,6 @@ def test_packmm_lane_stacked_rhs_exact(rng, N):
 
     gotp = np.asarray(unpack_rows(packmm_to_packed(a, b, 8)))
     np.testing.assert_array_equal(gotp, bitmm_np(qa, qb, 8, 8, 8))
-
-    tmap = build_tile_map_packed(a, tile_m=256, tile_k=256)
-    assert int(np.sum(np.asarray(tmap.kcnt))) < tmap.kidx.size
-    sparse = packmm_to_digits(a, b, 4, shift=2, tile_map=tmap)
-    np.testing.assert_array_equal(
-        np.asarray(digit_unpack(sparse)), want
-    )
 
 
 def test_packmm_chain_composes(rng):
@@ -179,7 +173,7 @@ def test_packmm_chain_composes(rng):
 
 
 def test_packmm_vs_digitmm_same_results(rng):
-    from qgtc_ppopp22_tpu.ops.digitmm import digitmm_to_digits
+    from qgtc_ppopp22.ops.digitmm import digitmm_to_digits
 
     qa = rng.integers(0, 2, (512, 512)).astype(np.int32)
     qb = rng.integers(0, 4, (512, 64)).astype(np.int32)
@@ -193,9 +187,9 @@ def test_packmm_vs_digitmm_same_results(rng):
 
 def test_packed_signed_layout_single_plane(rng):
     """Bits 5-8 pack ONE offset-signed byte plane (level ^ 0x80):
-    half the words of the two-nibble-plane layout, one MXU pass in
-    the kernel (``ops/packmm.field_width`` docstring)."""
-    from qgtc_ppopp22_tpu.ops.packmm import packed_signed
+    half the bytes of two nibble planes, one int8 pass per B digit
+    (``ops/packmm.field_width`` docstring)."""
+    from qgtc_ppopp22.ops.packmm import packed_signed
 
     assert packed_signed(8) and packed_signed(5)
     assert not packed_signed(4) and not packed_signed(1)
@@ -203,14 +197,14 @@ def test_packed_signed_layout_single_plane(rng):
     pt = pack_rows(jnp.asarray(q), 8)
     assert pt.words.shape[0] == 1  # single plane
     assert pt.words.dtype == jnp.int8  # plain bytes, no word packing
-    assert pt.rows_per_word == 1
+    assert pt.values_per_word == 1
     np.testing.assert_array_equal(np.asarray(unpack_rows(pt)), q)
 
 
 def test_packed_signed_sparse_occupancy(rng):
     """Zero LEVELS are 0x80 bytes in the signed layout; the tile map
-    must treat them as empty (and the sparse kernel must drop both
-    the dot and its rank-1 correction for skipped tiles)."""
+    must treat them as empty, and the GEMM's rank-1 correction must
+    cancel them exactly."""
     M = K = 512
     N = 32
     qa = rng.integers(0, 256, (M, K)).astype(np.int32)
@@ -218,12 +212,12 @@ def test_packed_signed_sparse_occupancy(rng):
     qb = rng.integers(0, 256, (K, N)).astype(np.int32)
     a = pack_rows(jnp.asarray(qa), 8)
     b = digit_pack(jnp.asarray(qb), 8)
-    tmap = build_tile_map_packed(a, tile_m=256, tile_k=256)
-    assert np.asarray(tmap.kcnt).tolist() == [1, 1]  # half skipped
+    _, kcnt = build_tile_map_packed_np(np.asarray(a.words), 8)
+    assert kcnt.tolist() == [1, 1]  # half of K empty
     want = bitmm_np(qa, qb, 8, 8, 8)
-    sparse = packmm_to_digits(a, b, 8, tile_map=tmap)
-    np.testing.assert_array_equal(np.asarray(digit_unpack(sparse)), want)
-    got_f = packmm_to_f32(a, b, tile_map=tmap)
+    got = packmm_to_digits(a, b, 8)
+    np.testing.assert_array_equal(np.asarray(digit_unpack(got)), want)
+    got_f = packmm_to_f32(a, b)
     np.testing.assert_array_equal(
         np.asarray(got_f), bitmm_np(qa, qb, 8, 8, None).astype(np.float32)
     )
@@ -252,45 +246,44 @@ def test_packed_signed_chain_composes(rng):
 
 
 def test_packmm_out_cols_slices_store(rng):
-    """``out_cols`` stores only the real N columns for terminal
-    outputs (values unchanged; the reference's outputs carry N
-    columns, not a 128-lane pad)."""
+    """Terminal outputs carry only the real N columns: f32 is [M, N]
+    (the reference emits dense M x N, ``kernel.h:920-930``), and a
+    packed output holds N columns of fields in its 128-column pad."""
     qa = rng.integers(0, 256, (256, 256)).astype(np.int32)
     qb = rng.integers(0, 256, (256, 16)).astype(np.int32)
     a = pack_rows(jnp.asarray(qa), 8)
     b = digit_pack(jnp.asarray(qb), 8)
-    c = packmm_to_packed(a, b, 8, out_cols=16)
-    assert c.words.shape[2] == 16
+    c = packmm_to_packed(a, b, 8)
+    assert c.shape == (256, 16) and c.padded_cols == 128
     np.testing.assert_array_equal(
         np.asarray(unpack_rows(c)), bitmm_np(qa, qb, 8, 8, 8)
     )
-    f = packmm_to_f32(a, b, out_cols=16)
+    f = packmm_to_f32(a, b)
+    assert f.shape == (256, 16)
     np.testing.assert_array_equal(
         np.asarray(f), bitmm_np(qa, qb, 8, 8, None).astype(np.float32)
     )
-    # low-bit packed output slices too
+    # low-bit packed output too
     qa2 = rng.integers(0, 4, (256, 256)).astype(np.int32)
     a2 = pack_rows(jnp.asarray(qa2), 2)
     qb2 = rng.integers(0, 4, (256, 16)).astype(np.int32)
     b2 = digit_pack(jnp.asarray(qb2), 2)
-    c2 = packmm_to_packed(a2, b2, 2, out_cols=16)
-    assert c2.words.shape[2] == 16
+    c2 = packmm_to_packed(a2, b2, 2)
+    assert c2.words.shape[2] == 128 // 16
     np.testing.assert_array_equal(
         np.asarray(unpack_rows(c2)), bitmm_np(qa2, qb2, 2, 2, 2)
     )
 
 
 def test_prepared_rhs_stream_exact(rng):
-    """The signed-plane streaming kernel (PreparedRHS, ones-lane
-    rowsum, rank-1 correction) is bit-exact vs golden for every
-    output form, including padding rows/lanes (level 0)."""
-    from qgtc_ppopp22_tpu.ops.packmm import prepare_rhs
-
+    """The signed-plane GEMM (rank-1 ``128 * colsum(B)`` correction)
+    is bit-exact vs golden for every output form, including padding
+    rows/lanes (level 0)."""
     M, K, N = 700, 300, 60
     qa = rng.integers(0, 256, (M, K)).astype(np.int32)
     qb = rng.integers(0, 256, (K, N)).astype(np.int32)
     a = pack_rows(jnp.asarray(qa), 8)
-    bp = prepare_rhs(digit_pack(jnp.asarray(qb), 8))
+    bp = digit_pack(jnp.asarray(qb), 8)
 
     got = np.asarray(packmm_to_f32(a, bp))
     np.testing.assert_array_equal(
@@ -313,14 +306,8 @@ def test_prepared_rhs_stream_exact(rng):
     dg = np.asarray(cd.digits)
     assert (dg[:, M:, :] == 0).all() and (dg[:, :, N:] == 0).all()
 
-    c16 = packmm_to_packed(a, bp, 8, out_cols=N)
-    assert c16.words.shape[2] == 64
-    np.testing.assert_array_equal(
-        np.asarray(unpack_rows(c16)), bitmm_np(qa, qb, 8, 8, 8)
-    )
-
     # low-bit packed output from a signed A
-    c2 = packmm_to_packed(a, bp, 2, out_cols=N)
+    c2 = packmm_to_packed(a, bp, 2)
     np.testing.assert_array_equal(
         np.asarray(unpack_rows(c2)), bitmm_np(qa, qb, 8, 8, 2)
     )
@@ -328,7 +315,7 @@ def test_prepared_rhs_stream_exact(rng):
 
 @pytest.mark.parametrize("N", [512, 300])
 def test_packmm_wide_n_multi_tile(rng, N):
-    """N beyond one lane tile (nn > 1 column blocks) — regression for
+    """N wider than one 128-column group — regression for
     the out_cols refactor slicing a tn-wide block at np_ width."""
     qa = rng.integers(0, 2, (512, 512)).astype(np.int32)
     qb = rng.integers(0, 4, (512, N)).astype(np.int32)
@@ -342,3 +329,34 @@ def test_packmm_wide_n_multi_tile(rng, N):
     np.testing.assert_array_equal(
         np.asarray(f), bitmm_np(qa, qb, 1, 2, None).astype(np.float32)
     )
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_packed_layout_contract(rng, bits):
+    """Word (m, w) holds column ``w * (32 // f) + j`` of row m in bits
+    ``[f*j, f*(j+1))`` (f = field width): 32 K-values per word at
+    1 bit, like the reference's packers (``kernel.h:204-242``)."""
+    from qgtc_ppopp22.ops.packmm import field_width
+
+    f = field_width(bits)
+    vpw = 32 // f
+    q = rng.integers(0, 1 << bits, (40, 3 * vpw + 5))
+    words = pack_rows_np(q, bits)[0].view(np.uint32)
+    for m, k in ((0, 0), (7, vpw - 1), (39, vpw + 1), (13, 3 * vpw + 4)):
+        w, j = divmod(k, vpw)
+        assert (int(words[m, w]) >> (f * j)) & ((1 << f) - 1) == q[m, k]
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_tile_counts_match_brute_force(rng, bits):
+    """Pack-time zero-tile counts == a direct scan of the levels."""
+    q = rng.integers(0, 1 << bits, (512, 768)) * (
+        rng.random((2, 1, 3, 1)) < 0.5
+    ).repeat(256, 1).repeat(256, 3).reshape(512, 768)
+    kidx, kcnt = build_tile_map_packed_np(pack_rows_np(q, bits), bits)
+    tiles = q.reshape(2, 256, 3, 256).any(axis=(1, 3))
+    np.testing.assert_array_equal(kcnt, tiles.sum(axis=1))
+    for i in range(2):
+        np.testing.assert_array_equal(
+            kidx[i, : kcnt[i]], np.nonzero(tiles[i])[0]
+        )

@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from qgtc_ppopp22_tpu.ops.quantize import quantize, requantize
+from qgtc_ppopp22.ops.quantize import quantize, requantize
 from tests.golden import quantize_np, requantize_np
 
 

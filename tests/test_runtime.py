@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from qgtc_ppopp22_tpu.graph import ClusterBatcher, synthesize
-from qgtc_ppopp22_tpu.runtime import BaselineEngine, QGTCEngine
+from qgtc_ppopp22.graph import ClusterBatcher, synthesize
+from qgtc_ppopp22.runtime import BaselineEngine, QGTCEngine
 
 
 @pytest.fixture(scope="module")
@@ -47,11 +47,18 @@ def test_engine_zerotile_agrees(small):
         feat_dim=it.feat_dim, num_classes=ds.num_classes,
         bit_width=2, seed=2,
     )
-    dense = QGTCEngine(**kw)
-    zt = QGTCEngine(**kw, zerotile_jump=True)
-    a = np.asarray(dense.forward_batch(it.batches[0]))
-    b = np.asarray(zt.forward_batch(it.batches[0]))
+    """Two engines of the same seed agree; the batches carry pack-time
+    zero-tile counts consistent with their packed adjacency."""
+    from qgtc_ppopp22.ops.packmm import build_tile_map_packed_np
+
+    one, two = QGTCEngine(**kw), QGTCEngine(**kw)
+    a = np.asarray(one.forward_batch(it.batches[0]))
+    b = np.asarray(two.forward_batch(it.batches[0]))
     np.testing.assert_array_equal(a, b)
+    for batch in it.batches:
+        kidx, kcnt = build_tile_map_packed_np(batch.a_words, 1)
+        np.testing.assert_array_equal(kcnt, batch.tile_kcnt)
+        assert kidx.shape == (batch.padded_nodes // 256,) * 2
 
 
 def test_engine_epochs_and_eval(small):
@@ -69,35 +76,50 @@ def test_engine_epochs_and_eval(small):
 
 
 def test_engine_fused_and_mega_match_stepwise(small):
+    """The scanned (fused) epoch == the per-batch step, every batch."""
     ds, it = small
     eng = QGTCEngine(
         feat_dim=it.feat_dim, num_classes=ds.num_classes, bit_width=2,
         seed=4,
     )
-    ref = np.asarray(eng.forward_batch(it.batches[0]))
-
-    # fused (scan) epoch produces logits for every batch; spot-check
-    # the first group's first batch via the mega path too.
     st = eng.run_epochs_fused(it, n_epochs=1)
-    assert st.avg_ms > 0
-    st = eng.run_epochs_mega(it, n_epochs=1)
-    assert st.avg_ms > 0
+    assert st.avg_ms > 0 and st.compiles == 0
+    assert st.device["platform"] == "cpu" and st.device["count"] >= 1
+    for b, got in zip(it.batches, eng.forward_all(it)):
+        np.testing.assert_array_equal(got, np.asarray(eng.forward_batch(b)))
 
-    # mega output correctness vs per-step path
-    import jax, jax.numpy as jnp
-    from qgtc_ppopp22_tpu.ops.digits import to_digit_tensor
-    from qgtc_ppopp22_tpu.ops.fused_model import fused_model_epoch
 
-    b = it.batches[0]
-    a_words = jnp.asarray(b.a_words)  # [1, pn//32, pn] packed adjacency
-    x_dg = to_digit_tensor(jax.device_put(b.bit_X)).digits
-    out = fused_model_epoch(
-        a_words, jnp.asarray(x_dg)[None], tuple(eng.weights), 2,
-        model="gcn",
+def _golden_logits(eng, batch, bits, shifts):
+    from qgtc_ppopp22.models import qgcn_golden, qgin_golden
+    from qgtc_ppopp22.ops.bitpack import unpack_bits
+    from tests.golden import quantize_np
+
+    qa = np.asarray(unpack_bits(batch.bit_A))
+    qx = np.asarray(unpack_bits(batch.bit_X))
+    qws = [quantize_np(np.asarray(w), bits) for w in eng.float_weights]
+    gold = qgcn_golden if eng.model == "gcn" else qgin_golden
+    return gold(qa, qx, qws, bits, bits, shifts=shifts).astype(np.float32)
+
+
+@pytest.mark.parametrize("shifts", [None, (1, 2, 1, 2, 1)])
+@pytest.mark.parametrize("model", ["gcn", "gin"])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_engine_fused_step_golden(small, bits, model, shifts):
+    """Engine level, every bit width (the 8-bit signed/two-digit chain
+    included) x model x requant shifts: fused == step == golden."""
+    ds, it = small
+    it = it.rebit(bits)
+    eng = QGTCEngine(
+        feat_dim=it.feat_dim, num_classes=ds.num_classes, model=model,
+        bit_width=bits, seed=bits, shifts=shifts,
     )
-    np.testing.assert_array_equal(
-        np.asarray(out[0])[:, : ref.shape[1]], ref
-    )
+    fused = eng.forward_all(it)
+    for b, got in zip(it.batches, fused):
+        step = np.asarray(eng.forward_batch(b))
+        np.testing.assert_array_equal(got, step)
+        np.testing.assert_array_equal(
+            got, _golden_logits(eng, b, bits, shifts)
+        )
 
 
 def test_gin_engine(small):
@@ -129,7 +151,7 @@ def test_baseline_engine_precalc(small):
 
 
 def test_mega_nonstandard_buckets_and_gin_layers(small):
-    """Mega kernel: 256-multiple buckets and 1/2-layer GIN chains."""
+    """Scanned epoch: 256-multiple buckets and 1/2-layer GIN chains."""
     ds, _ = small
     it = ClusterBatcher(ds, 4, 2, bit_width=2, bucket_rows=256,
                         shuffle=False)
@@ -138,45 +160,35 @@ def test_mega_nonstandard_buckets_and_gin_layers(small):
             feat_dim=it.feat_dim, num_classes=ds.num_classes,
             model="gin", bit_width=2, num_layers=nl,
         )
-        ref = np.asarray(eng.forward_batch(it.batches[0]))
-        st = eng.run_epochs_mega(it, n_epochs=1)
+        st = eng.run_epochs_fused(it, n_epochs=1)
         assert st.avg_ms > 0
-        import jax, jax.numpy as jnp
-        from qgtc_ppopp22_tpu.ops.digits import to_digit_tensor
-        from qgtc_ppopp22_tpu.ops.fused_model import fused_model_epoch
-
-        b = it.batches[0]
-        a_words = jnp.asarray(b.a_words)
-        x_dg = jnp.asarray(to_digit_tensor(jax.device_put(b.bit_X)).digits)
-        out = fused_model_epoch(
-            a_words, x_dg[None], tuple(eng.weights), 2, model="gin"
-        )
-        np.testing.assert_array_equal(
-            np.asarray(out[0])[:, : ref.shape[1]], ref
-        )
+        for b, got in zip(it.batches, eng.forward_all(it)):
+            np.testing.assert_array_equal(
+                got, np.asarray(eng.forward_batch(b))
+            )
 
 
 def test_baseline_mega_matches_stepwise(small):
-    """fused_baseline_epoch == the per-step bf16 baseline forward."""
+    """The scanned bf16 baseline epoch == the per-step baseline forward
+    (same bf16 operands and f32 accumulation on the same backend)."""
+    import jax
     import jax.numpy as jnp
-
-    from qgtc_ppopp22_tpu.ops.fused_model import fused_baseline_epoch
 
     ds, it = small
     eng = BaselineEngine(
         feat_dim=it.feat_dim, num_classes=ds.num_classes, model="sage"
     )
     ref = np.asarray(eng.forward_batch(it.batches[0], ds, it.features))
-    st = eng.run_epochs_mega(it, ds, n_epochs=1)
+    st = eng.run_epochs_fused(it, ds, n_epochs=1)
     assert st.avg_ms > 0
     b = it.batches[0]
     a, x = eng._dense_cache[
         (b.padded_nodes, b.num_nodes, hash(b.nodes.tobytes()))
     ]
-    out = fused_baseline_epoch(
-        jnp.asarray(a.astype(np.int8))[None],
-        jnp.asarray(x)[None],
-        tuple(eng.weights),
+    out = jax.lax.map(
+        lambda ax: eng._fwd(ax[0].astype(jnp.bfloat16), ax[1],
+                            tuple(eng.weights)),
+        (jnp.asarray(a)[None], jnp.asarray(x)[None]),
     )
     np.testing.assert_allclose(
         np.asarray(out[0]), ref, rtol=1e-5, atol=1e-4
@@ -195,7 +207,7 @@ def test_baseline_engine(small):
 
 
 def test_cli_main(small, tmp_path, capsys):
-    from qgtc_ppopp22_tpu.cli import main
+    from qgtc_ppopp22.cli import main
 
     rc = main([
         "--dataset", "Proteins", "--dataset-scale", "0.02",
@@ -213,9 +225,9 @@ def test_sparse_engine_matches_sparse_forward(small):
     """SparseEngine == direct sparse_q_forward; evaluate in [0, 1]."""
     import jax.numpy as jnp
 
-    from qgtc_ppopp22_tpu.graph.batching import quantize_np
-    from qgtc_ppopp22_tpu.models.sparse import sparse_q_forward
-    from qgtc_ppopp22_tpu.runtime import SparseEngine
+    from qgtc_ppopp22.graph.batching import quantize_np
+    from qgtc_ppopp22.models.sparse import sparse_q_forward
+    from qgtc_ppopp22.runtime import SparseEngine
 
     ds, _ = small
     eng = SparseEngine(ds, model="gcn", bit_width=2, seed=7)
@@ -238,25 +250,25 @@ def test_sparse_engine_matches_sparse_forward(small):
 
 def test_cli_sparse_engine(small, tmp_path, capsys):
     """--sparse routes through SparseEngine; unsupported flags warn."""
-    from qgtc_ppopp22_tpu.cli import main
+    from qgtc_ppopp22.cli import main
 
     rc = main([
         "--dataset", "Proteins", "--dataset-scale", "0.02",
         "--n-epochs", "1", "--bit_width", "2", "--sparse",
-        "--zerotile_jump", "--eval-accuracy",
+        "--use-pp", "--eval-accuracy",
         "--json-out", str(tmp_path / "sp.jsonl"),
     ])
     assert rc == 0
     cap = capsys.readouterr()
     assert "Avg. Epoch:" in cap.out
     assert "accuracy:" in cap.out
-    assert "--zerotile_jump has no effect" in cap.err
+    assert "--use-pp has no effect" in cap.err
 
 
 def test_ppi_multilabel_f1_end_to_end(tmp_path, capsys):
     """ppi carries multilabels; engines + CLI report micro/macro F1
     (reference calc_f1/evaluate role, utils.py:43-60)."""
-    from qgtc_ppopp22_tpu.cli import main
+    from qgtc_ppopp22.cli import main
 
     ds = synthesize("ppi", scale=0.01, seed=3)
     assert ds.multilabels is not None
@@ -290,9 +302,9 @@ def test_cli_checkpoint_roundtrip(small, tmp_path, capsys):
     """QAT -> save_checkpoint -> CLI --weights end-to-end."""
     import jax
 
-    from qgtc_ppopp22_tpu.cli import main
-    from qgtc_ppopp22_tpu.models.qmodels import QModelConfig, init_weights
-    from qgtc_ppopp22_tpu.models.train import save_checkpoint
+    from qgtc_ppopp22.cli import main
+    from qgtc_ppopp22.models.qmodels import QModelConfig, init_weights
+    from qgtc_ppopp22.models.train import save_checkpoint
 
     ds, it = small
     cfg = QModelConfig(it.feat_dim, 16, ds.num_classes, bit_width=2)
@@ -313,15 +325,17 @@ def test_cli_checkpoint_roundtrip(small, tmp_path, capsys):
 
 
 def test_engine_mega_resident_compact_smoke(small):
-    """run_epochs_mega with --zerotile_jump forced on a resident
-    bucket routes through the occupancy-compacted schedule
-    (blk_sched); kernel exactness is covered by
-    test_signed_mega.test_compact_block_schedule — this checks the
-    engine wiring stages and runs."""
+    """Resident step epochs, transfer-inclusive step epochs and fused
+    epochs all time the same engine; each result names its device."""
     ds, it = small
-    eng = QGTCEngine(
-        feat_dim=it.feat_dim, num_classes=ds.num_classes,
-        bit_width=2, zerotile_jump=True,
-    )
-    st = eng.run_epochs_mega(it, n_epochs=1)
-    assert st.avg_ms > 0
+    eng = QGTCEngine(feat_dim=it.feat_dim, num_classes=ds.num_classes,
+                     bit_width=2, seed=6)
+    groups = eng._fused_groups(it)
+    assert sum(len(g[1]) for g in groups) == len(it)
+    for st in (
+        eng.run_epochs(it, n_epochs=1, resident=True),
+        eng.run_epochs(it, n_epochs=1, resident=False),
+        eng.run_epochs_fused(it, n_epochs=1),
+    ):
+        assert st.avg_ms > 0 and st.n_batches == len(it)
+        assert st.compiles == 0 and st.device["platform"] == "cpu"

@@ -5,22 +5,22 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qgtc_ppopp22_tpu.graph import ClusterBatcher, synthesize
-from qgtc_ppopp22_tpu.graph.batching import quantize_np
-from qgtc_ppopp22_tpu.models.qmodels import (
+from qgtc_ppopp22.graph import ClusterBatcher, synthesize
+from qgtc_ppopp22.graph.batching import quantize_np
+from qgtc_ppopp22.models.qmodels import (
     QModelConfig,
     init_weights,
     pack_weights,
     qgcn_forward,
 )
-from qgtc_ppopp22_tpu.models.train import (
+from qgtc_ppopp22.models.train import (
     _dense_batches,
     calibrate_shifts,
     float_twin_forward,
     qat_train,
     quantized_accuracy,
 )
-from qgtc_ppopp22_tpu.ops.digits import digit_pack
+from qgtc_ppopp22.ops.digits import digit_pack
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +57,7 @@ def test_ste_twin_is_integer_exact(ds_it):
 
 def test_shifted_golden_matches_engine(rng):
     """shifts thread consistently through golden + kernel paths."""
-    from qgtc_ppopp22_tpu.models.qmodels import qgcn_golden
+    from qgtc_ppopp22.models.qmodels import qgcn_golden
     from tests.golden import quantize_np as qnp
 
     bits = 2
@@ -96,7 +96,7 @@ def test_qat_learns_above_chance(ds_it):
     assert best > 0.65, best  # chance = 0.5
 
 def test_checkpoint_roundtrip(tmp_path, ds_it):
-    from qgtc_ppopp22_tpu.models.train import (
+    from qgtc_ppopp22.models.train import (
         load_checkpoint,
         save_checkpoint,
     )
@@ -118,7 +118,7 @@ def test_wide_engine_emulates_narrow_exactly(ds_it):
     the requant clamp narrowed (``clamp_bits=2``) — the deployment
     form of the accuracy ladder's exact-emulation candidate, which
     makes the committed frontier monotone by construction."""
-    from qgtc_ppopp22_tpu.runtime import QGTCEngine
+    from qgtc_ppopp22.runtime import QGTCEngine
 
     ds, it2 = ds_it
     it8 = ClusterBatcher(
